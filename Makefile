@@ -2,24 +2,27 @@
 
 PY ?= python
 
-.PHONY: test test-v test-q test-slow test-all bench native golden vectors \
-        multihost clean docs docs-check
+.PHONY: test test-v test-q test-slow test-all test-gpu bench smoke smoke-four \
+        native golden vectors multihost clean
 
-test: docs-check
+test:
 	$(PY) -m pytest tests/ -q
 
 # full tier incl. slow tests (timing uniformity, default-params H digest,
 # depth-3 squaring)
-test-all: docs-check
+test-all:
 	$(PY) -m pytest tests/ -q -m ""
 
-# regenerate README/SCALING headline blocks from benchmark artifacts
-docs:
-	$(PY) tools/update_docs.py
+# tests that need the card (marker `gpu`)
+test-gpu:
+	JAX_PLATFORMS=cuda,cpu $(PY) -m pytest tests/ -q -m gpu
 
-# fail when a doc headline block lags its artifacts (VERDICT r4 #7)
-docs-check:
-	$(PY) tools/update_docs.py --check
+# the device engine's main path on one GPU / the mesh path on four
+smoke:
+	$(PY) chip_smoke.py
+
+smoke-four:
+	$(PY) chip_smoke.py --four
 
 test-v:
 	PVAC_DBG=1 $(PY) -m pytest tests/ -v

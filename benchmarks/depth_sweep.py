@@ -22,8 +22,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pvac_jax_cache")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
@@ -36,11 +34,9 @@ def log(*a):
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/pvac_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from pvac_hfhe_cppbyv_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
 
     import pvac_hfhe_cppbyv_tpu as pvac
     from pvac_hfhe_cppbyv_tpu.ops.encrypt import sigma_density

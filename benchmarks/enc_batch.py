@@ -12,7 +12,6 @@ block throughput.
 import argparse
 import pathlib
 import sys
-import threading
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -30,51 +29,20 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pvac_jax_cache")
-    import jax.numpy as jnp
+    from pvac_hfhe_cppbyv_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
 
     import pvac_hfhe_cppbyv_tpu as pvac
     from pvac_hfhe_cppbyv_tpu.crypto import lpn
     from pvac_hfhe_cppbyv_tpu.parallel.engine import enable_device
 
-    def keepalive():
-        x = jnp.arange(8)
-        while True:
-            try:
-                (x + 1).block_until_ready()
-            except Exception:
-                pass
-            time.sleep(3.0)
-
-    def probe():
-        """Window-speed probe: the device is time-shared (see ROUND5.md);
-        every artifact records the window its numbers came from."""
-        try:
-            import jax.lax as lax
-
-            a = jnp.ones((2048, 2048), dtype=jnp.bfloat16)
-            f = jax.jit(lambda x: lax.fori_loop(0, 50, lambda i, y: y @ a, x))
-            np.asarray(f(a)[:1, :1], dtype=np.float32)
-            best = float("inf")
-            for _ in range(3):
-                tp = time.time()
-                np.asarray(f(a)[:1, :1], dtype=np.float32)
-                best = min(best, time.time() - tp)
-            return round(50 * 2 * 2048**3 / best / 1e12, 1)
-        except Exception:
-            return None
-
     prm = pvac.small_test_params() if args.small else pvac.Params()
     t0 = time.time()
     pk, sk = pvac.keygen(prm)
     print(f"keygen: {time.time()-t0:.1f}s", flush=True)
-    probe_start = None
     if not args.host_only:
-        threading.Thread(target=keepalive, daemon=True).start()
         enable_device(pk, sk)
-        probe_start = probe()
-        print(f"window speed: {probe_start} bf16 TFLOP/s (peak ~197)",
-              flush=True)
 
     # warm compile
     pvac.enc_value_batch(pk, sk, list(range(min(args.chunk, args.n))))
@@ -110,9 +78,7 @@ def main():
             cts = fin()  # pair-fused assembly (ops/encrypt.py)
             if not sample:
                 sample = cts[:4]
-            # ciphertexts stream OUT (serving shape): retaining all 64K
-            # device-σ handles measurably degrades the allocator
-            # (docs/session_r5b.json 64K retained: ~0.5x this rate)
+            # ciphertexts stream OUT (serving shape)
             del cts
             el = time.time() - t0
             print(f"  {done}/{args.n} enc ({done/el:.1f} ct/s)", flush=True)
@@ -136,7 +102,6 @@ def main():
 
     if args.n >= 4096 and not args.small:
         import json
-        import os
 
         path = pathlib.Path(__file__).resolve().parent.parent / "docs" / \
             f"enc_batch_{args.n}.json"
@@ -150,7 +115,6 @@ def main():
             "ct_per_s": round(args.n / el, 1),
             "prf_cores_per_s": round(cores / el),
             "aes_blocks_per_s": round(blocks / el),
-            "window_probe_tflops": [probe_start, probe()],
         }
         # preserve prior runs: published figures must stay traceable even
         # after the headline entry is superseded

@@ -13,16 +13,15 @@ import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pvac_jax_cache")
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pvac_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
     import pvac_hfhe_cppbyv_tpu as pvac
+    from pvac_hfhe_cppbyv_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
     from pvac_hfhe_cppbyv_tpu.parallel.engine import enable_device
 
     prm = pvac.Params()

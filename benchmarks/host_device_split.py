@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measured host-vs-device time split for the real ops (VERDICT r2 #8).
+"""Measured host-vs-device time split for the real ops.
 
 The number that limits multi-host scaling for an embarrassingly-parallel
 dp workload is NOT communication (there is none) but the host:device work
@@ -13,15 +13,12 @@ does not.  This script measures, on the real device, at a realistic batch:
 - the pure device time of the σ programs,
 - the derived host+link share = total − device.
 
-Writes docs/host_device_split.json; docs/SCALING.md is regenerated from it
-(tools/gen_scaling_md.py).
+Writes docs/host_device_split.json.
 """
 import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pvac_jax_cache")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -29,14 +26,12 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/pvac_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import pvac_hfhe_cppbyv_tpu as pvac
-from pvac_hfhe_cppbyv_tpu.crypto import aesv
+from pvac_hfhe_cppbyv_tpu.config import enable_compile_cache
 from pvac_hfhe_cppbyv_tpu.parallel.engine import enable_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+enable_compile_cache()
 
 
 def log(*a):
@@ -61,25 +56,6 @@ def bench_dev(fn, *args, reps=10, warm=1):
     return (time.perf_counter() - t0) / reps
 
 
-def _probe():
-    """Window-speed probe (the device is time-shared; see ROUND5.md)."""
-    try:
-        import jax.lax as lax
-        import jax.numpy as jnp
-
-        a = jnp.ones((2048, 2048), dtype=jnp.bfloat16)
-        f = jax.jit(lambda x: lax.fori_loop(0, 50, lambda i, y: y @ a, x))
-        np.asarray(f(a)[:1, :1], dtype=np.float32)
-        best = float("inf")
-        for _ in range(3):
-            tp = time.time()
-            np.asarray(f(a)[:1, :1], dtype=np.float32)
-            best = min(best, time.time() - tp)
-        return round(50 * 2 * 2048**3 / best / 1e12, 1)
-    except Exception:
-        return None
-
-
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     dev = jax.devices()[0]
@@ -94,8 +70,6 @@ def main():
     eng.drain()
     warm_s = time.time() - t0
     log(f"enc warm: {warm_s:.1f}s")
-    # min-of-reps: the shared host has multi-second noise spikes; min is
-    # the honest cost estimate (same harness spirit as bench.py)
     t_total = float("inf")
     for r in range(3):
         rep_vals = [v + r for v in vals]
@@ -119,21 +93,10 @@ def main():
     t_prf_dev = 0.0
     for sz in sorted(set(chunks)):
         n_pad = eng._pad_lanes(sz)
-        if getattr(eng, "_derive_dev", False):
-            # production program: derive-on-device (seeds + dom hashes in)
-            f3 = rng.integers(0, 1 << 32, (n_pad, 3, 2),
-                              dtype=np.uint64).astype(np.uint32)
-            dh = rng.integers(0, 1 << 32, (n_pad, 2),
-                              dtype=np.uint64).astype(np.uint32)
-            fn = eng._prf_fn(n_pad, derive=True)
-            t = bench_dev(fn, eng._tmpl_dev, f3, dh, eng.s32_dev)
-        else:
-            keys = rng.integers(0, 256, (n_pad, 32),
-                                dtype=np.uint16).astype(np.uint8)
-            nlo = rng.integers(0, 1 << 32, n_pad,
-                               dtype=np.uint64).astype(np.uint32)
-            fn = eng._prf_fn(n_pad)
-            t = bench_dev(fn, keys, nlo, nlo, keys, nlo, nlo, eng.s32_dev)
+        keys = rng.integers(0, 256, (sz, 32), dtype=np.uint16).astype(np.uint8)
+        nonces = rng.integers(0, 1 << 63, sz, dtype=np.uint64)
+        _, args = eng.prf_key_args(keys, nonces, keys, nonces)
+        t = bench_dev(eng._prf_fn(n_pad), *args)
         t_prf_dev += t * chunks.count(sz)
         log(f"  prf chunk {sz} (pad {n_pad}): {t*1e3:.1f} ms device")
 
@@ -174,7 +137,6 @@ def main():
             "forced materialization; host+link = total - device (overlap "
             "makes this a lower bound on overlappable host work)"
         ),
-        "window_probe_tflops": _probe(),
     }
     path = os.path.join(REPO, "docs", "host_device_split.json")
     with open(path, "w") as f:

@@ -1,10 +1,8 @@
 #!/usr/bin/env python
 """Measured rates for the host-side native kernels (C++: AES-NI, SHA-NI,
-threaded) that carry the scheme when no accelerator is attached — the
-host analogue of benchmarks/roofline.py.
+threaded) that carry the scheme when no accelerator is attached.
 
-Writes docs/host_kernels.json and refreshes the marked appendix section
-of docs/ROOFLINE.md.
+Writes docs/host_kernels.json.
 """
 import json
 import os
@@ -16,7 +14,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MARK = "## Appendix: host native kernels"
 
 
 def main():
@@ -105,28 +102,6 @@ def main():
     with open(os.path.join(REPO, "docs", "host_kernels.json"), "w") as f:
         json.dump(out, f, indent=1)
 
-    md = [
-        MARK,
-        "",
-        f"Host: {out['host']} · {out['date']} · generated by "
-        "`benchmarks/host_kernels.py` from `docs/host_kernels.json`.  "
-        "These native C++ kernels carry the host engine (no accelerator): ",
-        "",
-        "| kernel | measured rate | note |",
-        "|---|---|---|",
-    ]
-    for r in rows:
-        md.append(f"| {r['kernel']} | **{r['rate']:,} {r['unit']}** | "
-                  f"{r['note']} |")
-    md.append("")
-
-    path = os.path.join(REPO, "docs", "ROOFLINE.md")
-    with open(path) as f:
-        doc = f.read()
-    if MARK in doc:
-        doc = doc[: doc.index(MARK)]
-    with open(path, "w") as f:
-        f.write(doc.rstrip() + "\n\n" + "\n".join(md))
     print(json.dumps(out))
 
 

@@ -2,7 +2,7 @@
 """Host-engine micro-benchmarks for the BASELINE.md rows that aren't
 covered by bench.py: make_evalkey, ct_recrypt, ct_add, dec_value.
 
-Writes docs/micro_bench.json (the artifact PARITY.md cites).
+Writes docs/micro_bench.json.
 Reference single-thread numbers (BASELINE.md, same host class):
 keygen 1.16 s, evalkey(pool=8) 1.06 s, recrypt 18 ms, ct_add 6.7 us,
 dec fresh 17 ms.

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
-"""Diagnose where ct_mul_batch wall time goes on the attached TPU.
+"""Diagnose where ct_mul_batch wall time goes on the attached GPU.
 
 Phases measured independently (all warm, min-of-reps):
-  - link RTT (tiny dependent fetch)
   - device sigma program alone (8192-lane chunk, dispatch->fetch)
   - host staging alone (native cross agg + seed packing, engine disabled)
   - full ct_mul_batch at several batch sizes
@@ -18,34 +17,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pvac_jax_cache")
-
 
 def main():
     out = {"ts": time.strftime("%Y-%m-%d %H:%M:%S")}
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/pvac_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from pvac_hfhe_cppbyv_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
     dev = jax.devices()[0]
     out["device"] = str(dev)
-    x = jax.device_put(jnp.arange(8), dev)
-    np.asarray(x + 1)
-    rtts = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        np.asarray(x + 1)
-        rtts.append(time.perf_counter() - t0)
-    out["link_rtt_ms"] = {
-        "min": round(min(rtts) * 1e3, 2),
-        "median": round(sorted(rtts)[len(rtts) // 2] * 1e3, 2),
-        "max": round(max(rtts) * 1e3, 2),
-    }
-    print("RTT:", out["link_rtt_ms"], flush=True)
 
     import pvac_hfhe_cppbyv_tpu as pvac
     from pvac_hfhe_cppbyv_tpu.parallel.engine import enable_device

@@ -1,18 +1,14 @@
 #!/usr/bin/env python
-"""Stage-by-stage timing of the device sigma program on the attached TPU.
+"""Stage-by-stage timing of the device sigma program on the attached GPU.
 
-Methodology (round 5): K dispatches back-to-back, completion forced by ONE
-device-side reduction + one scalar fetch (N serial np.asarray fetches cost
-N x link-RTT and polluted the round-4 numbers), amortized per call; a
-window-speed probe is recorded because the device is time-shared
-(docs/ROUND5.md).
+Methodology: K dispatches back-to-back, completion forced by ONE
+device-side reduction + one scalar fetch, amortized per call.
 
 Stages (all jitted separately, E=16384 lanes like one SIGMA_CHUNK):
-  1. SHA-CTR draw streams alone (both streams, Pallas midstate kernel)
+  1. SHA-CTR draw streams alone (both streams)
   2. draws_and_take (streams + first-occurrence dedup + take masks)
   3. H gather-XOR accumulation (144 thin gathers, precomputed idx)
-  4. noise one-hot accumulation (the measured winner of 5 variants —
-     docs/session_r5c.json)
+  4. noise one-hot accumulation
   5. the full production sigma program via the engine (marginal queued
      chunk, drained + compute-fenced)
 Writes docs/sigma_stages.json.
@@ -25,12 +21,10 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pvac_jax_cache")
 
 
 def main():
     import jax
-    import jax.lax as lax
     import jax.numpy as jnp
 
     dev = jax.devices()[0]
@@ -40,17 +34,6 @@ def main():
     from pvac_hfhe_cppbyv_tpu.crypto import shactr
 
     _red = jax.jit(lambda s: s.astype(jnp.uint32).sum())
-
-    def probe():
-        a = jnp.ones((2048, 2048), dtype=jnp.bfloat16)
-        f = jax.jit(lambda x: lax.fori_loop(0, 50, lambda i, y: y @ a, x))
-        np.asarray(f(a)[:1, :1], dtype=np.float32)
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.time()
-            np.asarray(f(a)[:1, :1], dtype=np.float32)
-            best = min(best, time.time() - t0)
-        return round(50 * 2 * 2048**3 / best / 1e12, 1)
 
     def amort(jf, *args, K=6):
         w = jf(*args)
@@ -72,9 +55,7 @@ def main():
     mw = prm.sigma_words32
     rng = np.random.default_rng(0)
     out = {"E": E, "date": time.strftime("%Y-%m-%d %H:%M:%S"),
-           "device": str(dev), "window_probe_tflops_start": probe()}
-    print(f"window: {out['window_probe_tflops_start']} bf16 TFLOP/s",
-          flush=True)
+           "device": str(dev)}
 
     lanes = jax.device_put(
         rng.integers(0, 1 << 32, (E, 7, 2), dtype=np.uint64).astype(
@@ -85,8 +66,8 @@ def main():
 
     # --- 1. SHA streams only (both streams) ---
     def streams(lz):
-        a = shactr.stream_u64s("pvac.dom.x_seed", lz, D, pallas_sha=True)
-        b = shactr.stream_u64s("pvac.dom.noise", lz, D, pallas_sha=True)
+        a = shactr.stream_u64s("pvac.dom.x_seed", lz, D)
+        b = shactr.stream_u64s("pvac.dom.noise", lz, D)
         return a[..., 0] ^ b[..., 0]
 
     t = amort(jax.jit(streams), lanes)
@@ -96,9 +77,9 @@ def main():
     # --- 2. draws_and_take (streams + dedup + take) ---
     def dt_fn(lz):
         cv, ct, f1 = shactr.draws_and_take(
-            prm.x_col_wt, prm.n_bits, "pvac.dom.x_seed", lz, pallas_sha=True)
+            prm.x_col_wt, prm.n_bits, "pvac.dom.x_seed", lz)
         nv, nt, f2 = shactr.draws_and_take(
-            prm.err_wt, prm.m_bits, "pvac.dom.noise", lz, pallas_sha=True)
+            prm.err_wt, prm.m_bits, "pvac.dom.noise", lz)
         return (cv & ct) ^ (nv & nt)
 
     t = amort(jax.jit(dt_fn), lanes)
@@ -181,7 +162,6 @@ def main():
     out["full_sigma_edges_per_s"] = round(E / best, 0)
     print(f"full sigma program (marginal): {best*1e3:.2f} ms -> "
           f"{E/best:,.0f} edges/s", flush=True)
-    out["window_probe_tflops_end"] = probe()
 
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "docs", "sigma_stages.json")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Basic usage tour (port of examples/basic_usage.cpp's 25-section demo).
 
-Run:  python examples/basic_usage.py [--default-params] [--tpu]
+Run:  python examples/basic_usage.py [--default-params] [--device]
 """
 import argparse
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
@@ -21,7 +22,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--default-params", action="store_true",
                     help="full-size Params (slower keygen)")
-    ap.add_argument("--tpu", action="store_true",
+    ap.add_argument("--device", action="store_true",
                     help="route hot kernels to the attached accelerator")
     args = ap.parse_args()
 
@@ -33,7 +34,7 @@ def main():
     print(f"keygen: {time.time()-t0:.2f}s  (B={prm.B}, m={prm.m_bits}, "
           f"n={prm.n_bits}, LPN n={prm.lpn_n})")
 
-    if args.tpu:
+    if args.device:
         from pvac_hfhe_cppbyv_tpu.parallel.engine import enable_device
 
         enable_device(pk, sk)
@@ -74,12 +75,13 @@ def main():
     print("commit(a) =", pvac.commit_ct(pk, a).hex()[:32], "...")
 
     section("text roundtrip")
-    cts = pvac.enc_text(pk, sk, "homomorphic hello from the TPU")
+    cts = pvac.enc_text(pk, sk, "homomorphic hello from the device")
     print("dec_text:", pvac.dec_text(pk, sk, cts))
 
     section("serialization")
-    pvac.save_cts([a, b, m], "/tmp/demo.ct")
-    back = pvac.load_cts("/tmp/demo.ct")
+    with tempfile.TemporaryDirectory() as tmp:
+        pvac.save_cts([a, b, m], f"{tmp}/demo.ct")
+        back = pvac.load_cts(f"{tmp}/demo.ct")
     print("roundtrip dec:", pvac.dec_value_batch(pk, sk, back))
 
     section("timing")

@@ -1,11 +1,11 @@
-"""pvac_hfhe_cppbyv_tpu — TPU-native PVAC-HFHE framework.
+"""pvac_hfhe_cppbyv_tpu — PVAC-HFHE on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas implementation of the PVAC-HFHE scheme over
+A from-scratch JAX/XLA implementation of the PVAC-HFHE scheme over
 F_p, p = 2^127 - 1 (reference: the header-only C++17 library
 vasihh2009/pvac_hfhe_cppbyv, umbrella header include/pvac/pvac.hpp).  The
 compute path — Mersenne-field limb arithmetic, AES-256-CTR PRF, LPN
 sampling, GF(2) Toeplitz hashing, hypergraph syndrome construction — runs as
-vectorized multi-limb kernels (numpy on host, jnp/Pallas on TPU), batched
+vectorized multi-limb kernels (numpy on host, jnp under XLA on the device), batched
 over many ciphertexts and shardable over a device mesh; the host side keeps
 the ciphertext graph, serialization and key management.
 
@@ -13,7 +13,7 @@ the ciphertext graph, serialization and key management.
 (mirrors include/pvac/pvac.hpp:4-23).
 """
 
-PVAC_TPU_VERSION = "0.1.0"
+PVAC_VERSION = "0.1.0"
 # Reference library version constants (include/pvac/pvac.hpp:27-37).
 PVAC_REF_VERSION = "0.1.0"
 

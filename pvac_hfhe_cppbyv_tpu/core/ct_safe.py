@@ -1,6 +1,6 @@
 """Constant-time-style toolkit (reference: include/pvac/core/ct_safe.hpp).
 
-On TPU the compute path is branch-free by construction (fixed shapes, no
+On the device the compute path is branch-free by construction (fixed shapes, no
 data-dependent control flow), so the constant-time discipline the reference
 enforces per-instruction holds at the program level.  This module provides
 the same *API surface* (masks, selects, swaps, field/bitvec variants,

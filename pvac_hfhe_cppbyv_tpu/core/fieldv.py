@@ -1,8 +1,8 @@
-"""Vectorized F_p arithmetic in 4x32-bit limbs (TPU compute path).
+"""Vectorized F_p arithmetic in 4x32-bit limbs (device compute path).
 
 p = 2^127 - 1.  A batch of field elements is an array of shape [..., 4] with
 dtype uint32, little-endian limbs (limb k holds bits 32k..32k+31), canonical
-value in [0, p).  TPUs have no 64/128-bit vector integer units, so all
+value in [0, p).  jax.numpy runs without 64-bit integers by default, so all
 arithmetic is built from 32-bit lanes; multiplication goes through 16-bit
 digits so partial products and column sums fit in uint32 without carry loss.
 

@@ -3,7 +3,7 @@
 Reference: include/pvac/core/hash.hpp.
 
 - Scalar byte-level SHA-256 uses hashlib (identical function).
-- :class:`Sha256Lanes` is the TPU workhorse: many independent SHA-256
+- :class:`Sha256Lanes` is the device workhorse: many independent SHA-256
   computations run in parallel, one per lane, as uint32 array ops.  It backs
   every SHA-256-CTR deterministic generator in the scheme (prg_choose_k,
   gen_ubk_public, gen_H, sigma_from_H, derive_aes_key — crypto/matrix.hpp,
@@ -191,10 +191,7 @@ class MsgLayout:
         self.template = np.frombuffer(bytes(tmpl), dtype=U8).copy()
 
     def template_words(self) -> np.ndarray:
-        """The message template as [n_blocks*16] big-endian u32 words —
-        pass as `tmpl_words` to :meth:`build_blocks` when the prefix holds
-        key material: shipping it as a program INPUT keeps the compiled
-        HLO identical across keypairs (compile-cache friendly)."""
+        """The message template as [n_blocks*16] big-endian u32 words."""
         return (
             (self.template[0::4].astype(np.uint32) << 24)
             | (self.template[1::4].astype(np.uint32) << 16)
@@ -202,7 +199,7 @@ class MsgLayout:
             | (self.template[3::4].astype(np.uint32))
         )
 
-    def build_blocks(self, fields, tmpl_words=None):
+    def build_blocks(self, fields):
         """fields: [..., n_fields, 2] uint32 (lo32, hi32) of each u64 field.
         Returns [..., n_blocks, 16] uint32 big-endian message words."""
         xp = np if type(fields).__module__.startswith("numpy") else __import__(
@@ -212,8 +209,7 @@ class MsgLayout:
         nb = self.n_blocks
         # Assemble as big-endian u32 words directly.  Word w covers template
         # bytes 4w..4w+3.
-        if tmpl_words is None:
-            tmpl_words = xp.asarray(self.template_words())  # [nb*16]
+        tmpl_words = xp.asarray(self.template_words())  # [nb*16]
         words = xp.broadcast_to(tmpl_words, (*batch, nb * 16))
         # Overlay the u64 fields.  Field f occupies bytes off..off+7 with
         # little-endian byte order: byte j = (u64 >> 8j) & 0xff.

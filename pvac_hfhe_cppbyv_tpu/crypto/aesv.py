@@ -1,6 +1,6 @@
-"""Bitsliced vectorized AES-256-CTR (the TPU keystream engine).
+"""Bitsliced vectorized AES-256-CTR (the device keystream engine).
 
-TPUs have no AES instructions, so AES runs as a boolean circuit over uint32
+XLA has no AES instructions, so AES runs as a boolean circuit over uint32
 lanes: bit b of byte position p of 32 consecutive counter blocks lives in one
 uint32 (block index within the group = bit position in the lane word).  The
 S-box is computed arithmetically — GF(2^8) inversion by Fermat (x^254) with
@@ -465,66 +465,6 @@ def expand_keys_packed(keys_bytes: np.ndarray) -> np.ndarray:
     return _expand_schedule(keys_bytes)
 
 
-def expand_keys_packed_xp(keys_bytes) -> "np.ndarray":
-    """xp-agnostic (jit-safe) AES-256 key schedule -> lane-packed planes
-    [1920, N/32]; N must be a multiple of 32.
-
-    Runs ON DEVICE inside the engine's prf program: shipping raw 32-byte
-    keys costs 8x less link transfer than the packed round-key planes
-    (32 KB vs 245 KB per 1024-lane chunk — the planes were the largest
-    host->device transfer of a warm encryption batch), and the schedule
-    itself is ~14 bitsliced S-box circuits over [60, N/32] words — noise
-    on the VPU.  Bit-identical to the host scrollers (_expand_schedule /
-    native expand_keys_packed) on all valid lanes."""
-    xp = _xp(keys_bytes)
-    N = keys_bytes.shape[0]
-    assert N % 32 == 0, N
-    kb = keys_bytes.astype(U32)
-    nw = N // 32
-    sh32 = xp.arange(32, dtype=U32)
-
-    def pack(bits):  # [N] {0,1} -> [N/32] u32 (disjoint bits: sum == OR)
-        return (bits.reshape(nw, 32) << sh32).sum(axis=-1).astype(U32)
-
-    wb = []
-    for i in range(8):
-        word = []
-        for k in range(4):
-            byte = kb[:, 4 * i + k]
-            word.append([pack((byte >> U32(b)) & U32(1)) for b in range(8)])
-        wb.append(word)
-
-    def subword(word):
-        planes = [xp.stack([word[k][b] for k in range(4)]) for b in range(8)]
-        planes = sbox_planes(planes)
-        return [[planes[b][k] for b in range(8)] for k in range(4)]
-
-    def rotword(word):
-        return [word[1], word[2], word[3], word[0]]
-
-    for i in range(8, 60):
-        t = wb[i - 1]
-        if i % 8 == 0:
-            t = subword(rotword(t))
-            rcon = _RCON[i // 8 - 1]
-            t = [list(tb) for tb in t]
-            for b in range(8):
-                if (rcon >> b) & 1:
-                    t[0][b] = ~t[0][b]
-        elif i % 8 == 4:
-            t = subword(t)
-        wb.append(
-            [[wb[i - 8][k][b] ^ t[k][b] for b in range(8)] for k in range(4)]
-        )
-    planes_flat = []
-    for r in range(15):
-        for p in range(16):
-            c, k = p // 4, p % 4
-            for b in range(8):
-                planes_flat.append(wb[4 * r + c][k][b])
-    return xp.stack(planes_flat)  # [1920, N/32]
-
-
 def _expand_schedule(keys_bytes: np.ndarray) -> np.ndarray:
     N = keys_bytes.shape[0]
     kb = keys_bytes.astype(U32)
@@ -622,11 +562,9 @@ def counters_to_planes(nonce_lo, nonce_hi, n_blocks: int):
 def counters_to_planes_gn(nonce_lo, nonce_hi, n_blocks: int):
     """counters_to_planes in G-major layout: planes are [16, G, N].
 
-    The minor (VPU lane) axis is then N — a multiple of 128 by the
-    engine's lane padding — instead of G = ceil(n_blocks/32), which for
-    the PRF shape (G = 129) tiles to 256 lanes and wastes ~2x of both
-    lanes and the HBM traffic of every fusion boundary.  Built transposed
-    from the start (no per-plane transposes)."""
+    The minor axis is then N (a power of two by the engine's lane
+    padding) instead of G = ceil(n_blocks/32), which is 129 at the PRF
+    shape.  Built transposed from the start (no per-plane transposes)."""
     xp = _xp(nonce_lo)
     N = nonce_lo.shape[0]
     G = (n_blocks + 31) // 32
@@ -686,9 +624,8 @@ def encrypt_planes(rk_masks, planes, unroll: bool = False):
     Returns output planes (same layout).
 
     unroll=True (jax only) emits the 13 middle rounds as straight-line ops
-    instead of a lax.fori_loop: the loop forces every plane array through
-    HBM at each round boundary, and cross-round fusion is where the
-    keystream's HBM-bound time goes (docs/roofline.json).
+    instead of a lax.fori_loop, whose round boundaries force every plane
+    array through device memory.
     """
     return _encrypt_planes_core(rk_masks, planes, gn=False, unroll=unroll)
 

@@ -187,37 +187,6 @@ def derive_keys_batch(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
     return keys, nonces
 
 
-def derive_layout(pk: PubKey, sk: SecKey) -> "H.MsgLayout":
-    """The derive_aes_key message layout (prefix = prf_k||canon||H_digest,
-    4 u64 fields: ztag, nonce_lo, nonce_hi, dom_hash)."""
-    return H.MsgLayout(_key_prefix(pk, sk), 4)
-
-
-def derive_keys_xp(layout, tmpl_words, fields4):
-    """Backend-agnostic derive_aes_key core: fields4 [..., 4, 2] u32
-    (ztag, nonce_lo, nonce_hi, dom_hash as lo/hi pairs) -> digest bytes
-    [..., 32] u8.  tmpl_words is :meth:`MsgLayout.template_words` shipped
-    as data so the compiled program is keypair-independent.  Used by the
-    device engine to derive AES keys ON DEVICE (the raw seeds cost ~3x
-    less link transfer than 32-byte keys, and the host-side SHA pass
-    disappears); bit-identical to derive_keys_batch."""
-    xp = _xp_of(fields4)
-    blocks = layout.build_blocks(fields4, tmpl_words)
-    state = H.sha256_init_state(fields4.shape[:-2], xp)
-    for b in range(layout.n_blocks):
-        state = H.sha256_compress(state, blocks[..., b, :])
-    byts = xp.stack(
-        [
-            (state >> U32(24)) & U32(0xFF),
-            (state >> U32(16)) & U32(0xFF),
-            (state >> U32(8)) & U32(0xFF),
-            state & U32(0xFF),
-        ],
-        axis=-1,
-    )  # [..., 8, 4] big-endian digest byte order
-    return byts.reshape(*fields4.shape[:-2], 32).astype(np.uint8)
-
-
 def _xp_of(a):
     if type(a).__module__.startswith("numpy"):
         return np
@@ -276,47 +245,6 @@ def cores_from_streams(u64s, top_u, s32_flat, prm):
     return _cores_tail(xp, dot, u64s, top_u, prm, rows, sw64)
 
 
-def cores_from_streams_t(words_t, top_u, s32_flat, prm):
-    """cores_from_streams for the fused-kernel-native keystream layout.
-
-    words_t: [4, B, N] u32 — plane-major keystream as produced by
-    crypto/aes_fused.py (word w of block b at [w, b, lane]).  Consuming
-    this directly keeps the lane axis minor for every VPU op and skips
-    the [N, B, 4] transpose of the materialized keystream (~135 MB of
-    HBM round trip at the PRF shape).  u64 stream index j of a lane maps
-    to lo = words_t[2*(j&1), j>>1], hi = words_t[2*(j&1)+1, j>>1].
-    Bit-exact with cores_from_streams on the transposed words.
-    """
-    xp = _xp_of(words_t)
-    Bp = words_t.shape[1]
-    N = words_t.shape[2]
-    rows = _rows_per_core(prm)
-    sw64 = prm.s_words64
-    stride = sw64 + 1
-    flat = words_t.reshape(4 * Bp, N)
-
-    j = (np.arange(rows)[:, None] * stride
-         + np.arange(sw64)[None, :]).reshape(-1)      # [rows*sw64]
-    w_lo = 2 * (j & 1)
-    blk = j >> 1
-    lo = flat[w_lo * Bp + blk].reshape(rows, sw64, N)
-    hi = flat[(w_lo + 1) * Bp + blk].reshape(rows, sw64, N)
-
-    s32 = s32_flat.reshape(sw64, 2)
-    acc = (lo & s32[None, :, 0, None]) ^ (hi & s32[None, :, 1, None])
-    while acc.shape[1] > 1:                            # xor-reduce sw64 axis
-        acc = acc[:, 0::2] ^ acc[:, 1::2]
-    dot = _parity_fold(acc[:, 0])                      # [rows, N]
-
-    jn = np.arange(rows) * stride + sw64
-    wn_lo = 2 * (jn & 1)
-    nz_lo = flat[wn_lo * Bp + (jn >> 1)]               # [rows, N]
-    nz_hi = flat[(wn_lo + 1) * Bp + (jn >> 1)]
-    e, rej = _noise_from_u64(xp, nz_lo, nz_hi, prm)
-
-    return _cores_tail2(xp, dot.T, e.T, rej.T, top_u, prm, rows)
-
-
 def cores_from_streams_tp(u64s, top_u, s32_local, prm, axis_name="tp"):
     """Tensor-parallel cores_from_streams for use inside a shard_map body.
 
@@ -359,7 +287,7 @@ def cores_from_streams_tp(u64s, top_u, s32_local, prm, axis_name="tp"):
 
 def _noise_from_u64(xp, nz_lo, nz_hi, prm):
     """Bernoulli noise bit + bounded-rejection flag from the per-row noise
-    u64 (lo, hi) halves — shared by both keystream layouts."""
+    u64 (lo, hi) halves."""
     den = prm.lpn_tau_den
     num = prm.lpn_tau_num
     # bounded(den) < num with strict-< acceptance; den is a power of two in
@@ -421,18 +349,6 @@ def prf_cores_batch_start(pk: PubKey, sk: SecKey, seeds_u64: np.ndarray,
     nblocks = n_ybits_blocks(prm)
 
     engine = getattr(pk, "_engine", None)
-    if (engine is not None and engine.s32_dev is not None
-            and getattr(engine, "_derive_dev", False)):
-        # derive-on-device: ship the raw seeds + dom hashes (~3x less
-        # link transfer than two 32-byte keys per core) and skip the host
-        # SHA pass entirely
-        r_dev, rej_dev = engine.prf_cores_async_seeds(seeds_u64, dom_hashes)
-
-        def fetch():
-            return np.asarray(r_dev), np.asarray(rej_dev)[:, None]
-
-        return _prf_finalize(pk, sk, seeds_u64, dom_hashes, fetch)
-
     keys, nonces = derive_keys_batch(pk, sk, seeds_u64, dom_hashes)
     toep_keys, toep_base = derive_keys_batch(
         pk, sk, seeds_u64,

@@ -92,14 +92,11 @@ def _layout(label: bytes, n_words: int) -> H.MsgLayout:
     return H.MsgLayout(label, n_words + 1)  # +1 for the counter field
 
 
-def stream_u64s(label: str | bytes, words_lanes, n_u64: int,
-                pallas_sha: bool = False):
+def stream_u64s(label: str | bytes, words_lanes, n_u64: int):
     """Vectorized stream: words_lanes [L, n_words, 2] uint32 (lo, hi) per
     lane -> [L, n_u64, 2] uint32 little-endian u64 halves, in stream order.
 
-    Works under numpy and jax.numpy (jit-safe, static shapes).  With
-    pallas_sha=True (TPU only) the compression chain runs as one fused
-    Pallas kernel instead of per-round XLA ops.
+    Works under numpy and jax.numpy (jit-safe, static shapes).
     """
     xp = np if type(words_lanes).__module__.startswith("numpy") else __import__(
         "jax.numpy", fromlist=["x"]
@@ -110,45 +107,22 @@ def stream_u64s(label: str | bytes, words_lanes, n_u64: int,
     n_refills = (n_u64 + 3) // 4
     layout = _layout(prefix, n_words)
 
-    if pallas_sha and xp is not np:
-        # Fused Pallas SHA-256-CTR kernel: message words are assembled
-        # in-register from the lane fields, the counter-independent block-1
-        # midstate is computed once per lane, and only the counter block is
-        # recompressed per refill.
-        from . import sha256_pallas
+    # fields per (lane, refill): words + counter
+    ctr = xp.arange(n_refills, dtype=U32)
+    zeros = xp.zeros((n_refills,), dtype=U32)
+    ctr_fields = xp.stack([ctr, zeros], axis=-1)  # [R, 2]
+    w = xp.broadcast_to(
+        words_lanes[:, None, :, :], (L_batch, n_refills, n_words, 2)
+    )
+    c = xp.broadcast_to(
+        ctr_fields[None, :, None, :], (L_batch, n_refills, 1, 2)
+    )
+    fields = xp.concatenate([w, c], axis=2)  # [L, R, n_words+1, 2]
 
-        T = sha256_pallas.TILE
-        L_pad = -(-L_batch // T) * T
-        lanes = words_lanes
-        if L_pad != L_batch:
-            lanes = xp.concatenate(
-                [lanes, xp.zeros((L_pad - L_batch, n_words, 2), dtype=U32)],
-                axis=0,
-            )
-        # append a dummy counter field (substituted in-kernel)
-        lanes = xp.concatenate(
-            [lanes, xp.zeros((L_pad, 1, 2), dtype=U32)], axis=1
-        )
-        state = sha256_pallas.shactr_stream_states(
-            prefix, lanes, n_words + 1, n_refills
-        )[:L_batch]
-    else:
-        # fields per (lane, refill): words + counter
-        ctr = xp.arange(n_refills, dtype=U32)
-        zeros = xp.zeros((n_refills,), dtype=U32)
-        ctr_fields = xp.stack([ctr, zeros], axis=-1)  # [R, 2]
-        w = xp.broadcast_to(
-            words_lanes[:, None, :, :], (L_batch, n_refills, n_words, 2)
-        )
-        c = xp.broadcast_to(
-            ctr_fields[None, :, None, :], (L_batch, n_refills, 1, 2)
-        )
-        fields = xp.concatenate([w, c], axis=2)  # [L, R, n_words+1, 2]
-
-        blocks = layout.build_blocks(fields)  # [L, R, nb, 16]
-        state = H.sha256_init_state((L_batch, n_refills), xp)
-        for b in range(layout.n_blocks):
-            state = H.sha256_compress(state, blocks[:, :, b, :])
+    blocks = layout.build_blocks(fields)  # [L, R, nb, 16]
+    state = H.sha256_init_state((L_batch, n_refills), xp)
+    for b in range(layout.n_blocks):
+        state = H.sha256_compress(state, blocks[:, :, b, :])
     u64s = H.digest_words_to_le_u64_pairs(state)  # [L, R, 4, 2]
     u64s = u64s.reshape(L_batch, n_refills * 4, 2)
     return u64s[:, :n_u64, :]
@@ -176,7 +150,7 @@ def bounded_ok_mask(u64_pairs, M: int):
 
 
 def draws_and_take(k: int, N: int, label: str | bytes, words_lanes,
-                   overshoot: int = 16, pallas_sha: bool = False):
+                   overshoot: int = 16):
     """Vectorized prg_choose_k without the order-compaction step.
 
     Returns (vals [L, D] int32, take [L, D] bool, fallback [L] bool) where
@@ -184,7 +158,7 @@ def draws_and_take(k: int, N: int, label: str | bytes, words_lanes,
     consumer of the selected indices is order-insensitive (XOR of H columns,
     XOR of single bits), the selected set {vals[take]} is all that's needed —
     skipping the rank->slot scatter of :func:`choose_k_batch`, which is the
-    costliest stage of the σ program on TPU.
+    costliest stage of the σ program.
 
     Semantics match the reference prg_choose_k (matrix.hpp:15-92) as a set;
     lanes where the D-draw window can't produce k uniques (or a bounded
@@ -194,7 +168,7 @@ def draws_and_take(k: int, N: int, label: str | bytes, words_lanes,
         "jax.numpy", fromlist=["x"]
     )
     D = k + overshoot
-    u64s = stream_u64s(label, words_lanes, D, pallas_sha=pallas_sha)
+    u64s = stream_u64s(label, words_lanes, D)
     ok = bounded_ok_mask(u64s, N)
     vals = mod_u64(u64s, N).astype(np.int32)
     if xp is np:
@@ -220,7 +194,7 @@ def draws_and_take(k: int, N: int, label: str | bytes, words_lanes,
 
 
 def choose_k_batch(k: int, N: int, label: str | bytes, words_lanes,
-                   overshoot: int = 64, pallas_sha: bool = False):
+                   overshoot: int = 64):
     """Vectorized prg_choose_k over many lanes.
 
     words_lanes: [L, n_words, 2] uint32.  Returns (indices [L, k] int32,
@@ -232,7 +206,7 @@ def choose_k_batch(k: int, N: int, label: str | bytes, words_lanes,
         "jax.numpy", fromlist=["x"]
     )
     D = k + overshoot
-    u64s = stream_u64s(label, words_lanes, D, pallas_sha=pallas_sha)  # [L, D, 2]
+    u64s = stream_u64s(label, words_lanes, D)  # [L, D, 2]
     ok = bounded_ok_mask(u64s, N)  # [L, D]
     vals = mod_u64(u64s, N).astype(np.int32)  # [L, D]
 
@@ -256,8 +230,8 @@ def choose_k_batch(k: int, N: int, label: str | bytes, words_lanes,
         rows = np.arange(vals.shape[0])[:, None]
         first[rows, order] = first_sorted
     else:
-        # On TPU an O(D^2) pairwise compare beats sort by a wide margin:
-        # draw j is a first occurrence iff no earlier draw k<j equals it.
+        # O(D^2) pairwise compare instead of a sort: draw j is a first
+        # occurrence iff no earlier draw k<j equals it.
         earlier = xp.tril(xp.ones((D, D), dtype=bool), k=-1)  # [j, k]: k < j
         dup = ((vals[:, :, None] == vals[:, None, :]) & earlier[None]).any(-1)
         first = ~dup

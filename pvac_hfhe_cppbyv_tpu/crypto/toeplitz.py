@@ -5,7 +5,7 @@ with a (t+127)-bit pseudorandom top row, then keeps bits 0..126
 (toeplitz.hpp:121-190).  Bit k of a GF(2) convolution depends only on
 operand bits 0..k, so the 127 output bits depend only on the first 127 bits
 of each operand — verified bit-exactly against the reference
-(tools/refharness/check_toep.cpp).  The TPU path therefore convolves two
+(tools/refharness/check_toep.cpp).  The vectorized path therefore convolves two
 127-bit operands; the scalar path keeps the reference's full-width shape for
 API parity and cross-checks.
 """

@@ -2,7 +2,7 @@
 
 Mirrors the homomorphic demo circuits of examples/basic_usage.cpp (25
 sections: polynomials, linear combos, fib/factorial chains, powers with
-growth control) as reusable helpers over the TPU-batched ops.
+growth control) as reusable helpers over the batched ops.
 """
 from __future__ import annotations
 

@@ -21,9 +21,10 @@ _tried = False
 
 
 def _build_dir() -> pathlib.Path:
+    """``$PVAC_NATIVE_DIR``, else ``build/native`` in the checkout."""
     d = pathlib.Path(os.environ.get(
         "PVAC_NATIVE_DIR",
-        pathlib.Path.home() / ".cache" / "pvac_native",
+        pathlib.Path(__file__).resolve().parents[2] / "build" / "native",
     ))
     d.mkdir(parents=True, exist_ok=True)
     return d
@@ -37,14 +38,18 @@ def _compile() -> pathlib.Path | None:
         return out
     extra = ["-fsanitize=address,undefined", "-fno-omit-frame-pointer",
              "-g"] if sanitize else []
+    # build under a per-process name and rename: concurrent test workers
+    # may compile at once
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     for flags in (["-march=native"], []):
         try:
             subprocess.run(
                 ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
                  *flags,
-                 *extra, "-o", str(out), str(_SRC)],
+                 *extra, "-o", str(tmp), str(_SRC)],
                 check=True, capture_output=True, timeout=120,
             )
+            os.replace(tmp, out)
             return out
         except (subprocess.CalledProcessError, FileNotFoundError,
                 subprocess.TimeoutExpired):

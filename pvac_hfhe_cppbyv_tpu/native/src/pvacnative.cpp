@@ -1,7 +1,7 @@
-// pvacnative — native runtime for the TPU-native PVAC-HFHE framework.
+// pvacnative — native host runtime for the PVAC-HFHE framework.
 //
 // C++17, no external dependencies, exposed through a C ABI consumed via
-// ctypes.  Provides the host-side hot paths that complement the JAX/TPU
+// ctypes.  Provides the host-side hot paths that complement the JAX/XLA
 // compute path:
 //   - bit-exact .ct serialization codec (SoA edge tables <-> wire bytes)
 //   - AES-256-CTR keystream engine (AES-NI when available, portable

@@ -228,7 +228,7 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
     eager_max = int(os.environ.get("PVAC_SIGMA_EAGER_MAX", str(1 << 21)))
 
     # Phase 1: start all stagings.  Device-grid products (big edge sets)
-    # dispatch their MXU programs here and run concurrently; host products
+    # dispatch their int8-matmul programs here and run concurrently; host products
     # compute inline.  Phase 2 finalizes in order and feeds the σ pipeline.
     starts = [_ct_mul_stage_start(pk, A, B) for A, B in pairs]
     for fin in starts:
@@ -316,10 +316,9 @@ def ct_mul_batch(pk: PubKey, pairs: list[tuple[Cipher, Cipher]]) -> list[Cipher]
 # layer grid LA*LB*B^2 instead.
 MULGRID_PAIR_THRESHOLD = 1 << 20
 
-# ... unless the native threaded dense-bucket aggregator applies: it runs
-# at ~45M pairs/s/core (measured, 2-core host), so up to this many pairs
-# it beats shipping the product through the device grid (37 s vs 2.6 s at
-# the depth-sweep step-3 shape).  Tunable for bigger hosts.
+# ... unless the native threaded dense-bucket aggregator applies: up to
+# this many pairs it takes the product instead of the device grid.  The
+# split has not been measured on the GPU.
 NATIVE_AGG_PAIR_MAX = int(
     os.environ.get("PVAC_NATIVE_AGG_PAIR_MAX", str(1 << 28)))
 
@@ -426,10 +425,10 @@ def _ct_mul_stage_start(pk: PubKey, A: Cipher, B: Cipher):
     return finalize_host
 
 
-# Device-grid layer-block size: the grid program's HBM footprint grows with
-# LA*LB, so big products run as a grid of <=LBLOCK x LBLOCK layer blocks.
-# 64 OOMs a 16 GB v5e (XLA keeps several [LA*2, D7, LB*2, B] s32 dot temps
-# live across the unrolled digit loop — ~19.5 GB at 64); 32 peaks ~5 GB.
+# Device-grid layer-block size: the grid program's device-memory footprint
+# grows with LA*LB (XLA keeps several [LA*2, D7, LB*2, B] s32 dot temps live
+# across the unrolled digit loop), so big products run as a grid of
+# <=LBLOCK x LBLOCK layer blocks.
 MULGRID_LBLOCK = 32
 
 

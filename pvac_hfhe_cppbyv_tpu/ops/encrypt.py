@@ -718,8 +718,8 @@ def _sigma_for_plans_start(pk: PubKey, plans: list[_LayerPlan]):
 
     def finalize():
         if not isinstance(fin.sig, np.ndarray):
-            # device σ: skip the fallback-flag fetch (a full link round
-            # trip); the LazySigma fixup patches the rare fallback lanes
+            # device σ: skip the fallback-flag fetch (a host sync); the
+            # LazySigma fixup patches the rare fallback lanes
             # lazily on first materialization
             parts, fixer, vrows = matrix.sigma_deferred([fin])
             return parts[0], offsets, fixer, vrows

@@ -1,12 +1,12 @@
 """Device-mesh helpers.
 
 The reference is single-threaded (SURVEY.md §2.3); parallelism here is
-TPU-native by design:
+designed for a device mesh:
 
 - ``dp`` (data parallel): independent ciphertexts / PRF lanes / edges —
   embarrassingly parallel, no collectives.
 - ``tp`` (tensor parallel): intra-op sharding — σ-word columns, LPN row
-  blocks, and ct_mul bucket partial sums reduced with ``psum`` over ICI.
+  blocks, and ct_mul bucket partial sums reduced with ``psum`` over the device interconnect.
 """
 from __future__ import annotations
 

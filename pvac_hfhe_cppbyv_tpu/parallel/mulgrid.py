@@ -1,4 +1,4 @@
-"""Device ct_mul: dense-grid cyclic convolution on the MXU.
+"""Device ct_mul: dense-grid cyclic convolution as int8 matmuls.
 
 The reference's ct_mul hot loop (include/pvac/ops/arithmetic.hpp:79-87) is an
 O(|A|*|B|) hashmap aggregation keyed by (layer-pair, (idx_a+idx_b) mod B,
@@ -9,7 +9,7 @@ batch of cyclic convolutions of length B over F_p:
 
     out[la, lb, c, s] = sum_{i, sa}  WA[la, sa, i] * WB[lb, sa^s, (c-i) mod B]
 
-This module evaluates those convolutions on the MXU:
+This module evaluates those convolutions as integer matmuls:
 
 - field elements are decomposed into D7=19 digits of 7 bits, so int8 x int8
   products accumulated over the B=337-long contraction stay exact in int32;
@@ -38,6 +38,10 @@ from ..core import fieldv as FV
 U32 = np.uint32
 D7 = 19          # ceil(128 / 7) digits of 7 bits cover any 128-bit weight
 MAXP = 1 << 25   # int8 x int8 x 337 partial sums < 2^25
+# The contraction (length B) is zero-padded to a multiple of K_ALIGN: cuBLAS
+# refuses an int8 GEMM whose K is not a multiple of 4 (B = 337 fails with
+# CUBLAS_STATUS_NOT_SUPPORTED), and zero terms leave every sum exact.
+K_ALIGN = 32
 
 
 def _digits7(W):
@@ -99,6 +103,7 @@ def build_mul_grid_fn(Bmod: int, LAp: int, LBp: int, nAp: int, nBp: int,
     the host (their weights field-summed) — see ct_mul staging.
     """
     Midx = jnp.asarray(_conv_table(Bmod))
+    kpad = _pad_mult(Bmod, K_ALIGN) - Bmod
 
     def densify(slots, w, Lp):
         dense = jnp.zeros((Lp * 2 * Bmod + 1, 4), dtype=jnp.uint32)
@@ -110,7 +115,8 @@ def build_mul_grid_fn(Bmod: int, LAp: int, LBp: int, nAp: int, nBp: int,
         WB = densify(slotsB, wB, LBp)
         A8 = _digits7(WA).reshape(LAp, 2, Bmod, D7)       # int8
         A8m = jnp.transpose(A8, (0, 1, 3, 2)).reshape(LAp * 2 * D7, Bmod)
-        B8 = _digits7(WB).reshape(LBp * 2, Bmod, D7)      # [G, B, D7]
+        A8m = jnp.pad(A8m, ((0, 0), (0, kpad)))
+        B8 =_digits7(WB).reshape(LBp * 2, Bmod, D7)      # [G, B, D7]
 
         G = LBp * 2
         planes = [
@@ -121,7 +127,8 @@ def build_mul_grid_fn(Bmod: int, LAp: int, LBp: int, nAp: int, nBp: int,
             Bc = jnp.transpose(B8[:, Midx, d2], (1, 0, 2)).reshape(
                 Bmod, G * Bmod
             )
-            P = jax.lax.dot_general(
+            Bc = jnp.pad(Bc, ((0, kpad), (0, 0)))
+            P =jax.lax.dot_general(
                 A8m, Bc, (((1,), (0,)), ((), ())),
                 preferred_element_type=jnp.int32,
             ).reshape(LAp * 2, D7, G, Bmod)
@@ -155,6 +162,7 @@ def build_mul_grid_fn(Bmod: int, LAp: int, LBp: int, nAp: int, nBp: int,
         with jax.default_device(device):
             return jfn(*args)
 
+    call.lower = jfn.lower  # ahead-of-time compile, as jax.jit has
     return call
 
 
@@ -188,8 +196,8 @@ class MulGrid:
             self._cache[key] = fn
         return fn
 
-    def start(self, slotsA, wA, LA, slotsB, wB, LB):
-        """Dispatch one product; returns finalize() -> (out_w, nz) numpy.
+    def prepare(self, slotsA, wA, LA, slotsB, wB, LB):
+        """The compiled-program wrapper and padded arguments of one product.
 
         slots*/w* are host arrays of PRE-AGGREGATED (unique-slot) edges.
         Shapes pad: layer counts to a multiple of 4, edge counts to powers of
@@ -211,12 +219,18 @@ class MulGrid:
         self._rr += 1
         sA, wAp = pad(slotsA, wA, nAp, LAp)
         sB, wBp = pad(slotsB, wB, nBp, LBp)
-        out = self._fn(LAp, LBp, nAp, nBp, dev)(sA, wAp, sB, wBp)
+        return self._fn(LAp, LBp, nAp, nBp, dev), (sA, wAp, sB, wBp)
+
+    def start(self, slotsA, wA, LA, slotsB, wB, LB):
+        """Dispatch one product (see :meth:`prepare`); returns finalize() ->
+        (out_w, nz) numpy."""
+        fn, args = self.prepare(slotsA, wA, LA, slotsB, wB, LB)
+        out = fn(*args)
 
         def finalize():
             ow, nz = out
             del nz  # stays on device: recomputing any(-1) on the fetched
-            # weights is cheaper than transferring the mask over the link
+            # weights is cheaper than transferring the mask
             oww = np.asarray(ow)[:LA, :LB]
             return oww, oww.any(axis=-1)
 

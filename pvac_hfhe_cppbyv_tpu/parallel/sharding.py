@@ -7,7 +7,8 @@ SURVEY.md §2.3):
   independent; no communication.
 - ``tp`` shards the LPN secret contraction: each shard holds a slice of the
   4096-bit secret and of each sample row, computes a partial inner-product
-  parity, and the full dot is a ``psum`` over ICI (mod-2 after the sum).
+  parity, and the full dot is a ``psum`` over the device interconnect
+  (mod-2 after the sum).
   The ct_mul-style (layer-pair, idx) bucket accumulation is likewise
   computed shard-locally and ``psum``-reduced.
 
@@ -194,3 +195,27 @@ def make_multichip_step(mesh: Mesh, prm: Params, lanes_per_shard: int = 64):
         )
 
     return step, build_inputs
+
+
+def reference_step(prm: Params, args):
+    """Host (numpy) recomputation of the step from the same inputs:
+    returns (R [N, 4] u32 limbs, bucket sums as a list of B field ints)."""
+    from ..core import field as F
+
+    rk, nlo, nhi, trk, tnlo, tnhi, s32, bucket = args
+    N = nlo.shape[0]
+    nblocks = lpn.n_ybits_blocks(prm)
+
+    def stream(packed, lo, hi, nb):
+        rkm = aesv.rk_masks_from_packed(packed, N)
+        planes = aesv.counters_to_planes(lo, hi, nb)
+        words = aesv.planes_to_words(aesv.encrypt_planes(rkm, planes), nb)
+        return np.stack([words[:, :, 0::2].reshape(N, -1),
+                         words[:, :, 1::2].reshape(N, -1)], axis=-1)
+
+    R, _ = lpn.cores_from_streams(stream(rk, nlo, nhi, nblocks),
+                                  stream(trk, tnlo, tnhi, 1), s32, prm)
+    sums = [0] * prm.B
+    for v, b in zip(FV.to_ints(R), bucket):
+        sums[int(b)] = F.fp_add(sums[int(b)], v)
+    return np.asarray(R), sums

@@ -3,7 +3,7 @@
 The ciphertext uses a structure-of-arrays edge table (numpy, host-resident):
 device kernels consume the columns directly, padded to static bucket sizes.
 This replaces the reference's vector-of-structs (types.hpp:108-119) with a
-TPU-friendly layout.
+layout that vectorizes.
 """
 from __future__ import annotations
 

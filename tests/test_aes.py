@@ -77,19 +77,6 @@ def test_expand_keys_bitsliced():
                     assert int(rk[r, p, b, n]) == want, (n, r, p, b)
 
 
-def test_expand_keys_packed_xp_matches_host():
-    # the xp-agnostic on-device schedule (default on accelerators) is
-    # otherwise only exercised indirectly on TPU runs; pin it to the host
-    # scheduler bit-for-bit on the numpy backend (ADVICE r4)
-    rng = np.random.default_rng(17)
-    for N in (32, 64):
-        keys = rng.integers(0, 256, size=(N, 32), dtype=np.uint8)
-        want = aesv.expand_keys_packed(keys)
-        got = aesv.expand_keys_packed_xp(keys)
-        assert got.dtype == want.dtype and got.shape == want.shape
-        assert np.array_equal(got, want)
-
-
 def test_ctr_keystream_matches_scalar():
     rng = np.random.default_rng(11)
     N, nblocks = 5, 40

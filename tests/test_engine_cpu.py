@@ -1,10 +1,10 @@
 """Device-engine path on the CPU jax backend.
 
-The DeviceEngine (parallel/engine.py) normally attaches to a TPU; here it is
-attached to a CPU jax device with the Pallas kernels disabled, so everything
-EXCEPT the Pallas kernels themselves — prf_cores_async dispatch, LazySigma
-device-resident views, the compact σ transfer form, draws_and_take mask
-selection and sigma_finalize_many batched fallback fetches — runs in CI.
+The DeviceEngine (parallel/engine.py) normally attaches to a GPU; here it is
+attached to a CPU jax device, so the engine's control flow — prf_cores_async
+dispatch, LazySigma device-resident views, the compact σ transfer form,
+draws_and_take mask selection and sigma_finalize_many batched fallback
+fetches — runs in CI.
 
 Correctness oracle: the host (numpy + native) path, plus full enc/mul/dec
 roundtrips through the scheme.
@@ -24,8 +24,7 @@ from pvac_hfhe_cppbyv_tpu.types import LazySigma
 def eng_keys():
     pk, sk = pvac.keygen(pvac.small_test_params())
     cpu = jax.devices("cpu")[0]
-    eng = enable_device(pk, sk, device=cpu, use_pallas=False)
-    eng.use_pallas_sha = False
+    eng = enable_device(pk, sk, device=cpu)
     yield pk, sk, eng
     disable_device(pk)
 

@@ -71,13 +71,34 @@ def test_mulgrid_vs_bruteforce():
     assert got == want
 
 
+@pytest.mark.parametrize("k_align", [1, 4, 32])
+def test_mulgrid_contraction_padding_is_exact(k_align, monkeypatch):
+    """Zero-padding the length-B contraction (K_ALIGN, for cuBLAS's int8
+    GEMM) leaves every bucket weight unchanged."""
+    from pvac_hfhe_cppbyv_tpu.parallel import mulgrid
+
+    B, L = 23, 3
+    rng = np.random.default_rng(11)
+    sides = []
+    for n in (40, 50):
+        lid, idx, ch, w = _rand_edges(rng, n, L, B)
+        key, first = np.unique(_slots(lid, idx, ch, B), return_index=True)
+        sides += [key, w[first], L]
+    prm = type("P", (), {"B": B})()
+    dev = jax.devices("cpu")[0]
+    want = MulGrid(prm, dev).start(*sides)()
+    monkeypatch.setattr(mulgrid, "K_ALIGN", k_align)
+    got = MulGrid(prm, dev).start(*sides)()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[1].any()
+
+
 def test_mulgrid_ct_mul_integration(small_keys, monkeypatch):
     """ct_mul through the device grid decrypts correctly and produces the
     identical edge table to the host staging path."""
     pk, sk = small_keys
-    eng = enable_device(pk, sk, device=jax.devices("cpu")[0],
-                        use_pallas=False)
-    eng.use_pallas_sha = False
+    eng = enable_device(pk, sk, device=jax.devices("cpu")[0])
     try:
         monkeypatch.setattr(ar, "MULGRID_PAIR_THRESHOLD", 1)
         a, b = 123, 456
@@ -125,9 +146,7 @@ def test_mulgrid_mesh_blocks_use_all_devices(small_keys, monkeypatch):
     pk, sk = small_keys
     devs = jax.devices("cpu")
     assert len(devs) >= 8, "conftest provides 8 virtual cpu devices"
-    eng = enable_device(pk, sk, mesh=Mesh(np.array(devs), ("dp",)),
-                        use_pallas=False)
-    eng.use_pallas_sha = False
+    eng = enable_device(pk, sk, mesh=Mesh(np.array(devs), ("dp",)))
     try:
         a, b = 31337, 271828
         ca, cb = pvac.enc_value_batch(pk, sk, [a, b])

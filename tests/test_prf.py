@@ -62,48 +62,6 @@ def test_derive_keys_batch(vectors, synth):
         assert int(nonces[i]) == int(case["nonce"])
 
 
-def test_derive_keys_xp_matches_host(vectors, synth):
-    """The device-side derivation (derive_keys_xp, the default on
-    accelerator engines) is bit-identical to derive_keys_batch, including
-    the Toeplitz-domain key/nonce construction mirrored from
-    engine.prf_program's derive mode."""
-    pk, sk, seed = synth
-    rng = np.random.default_rng(23)
-    N = 16
-    seeds = rng.integers(0, 1 << 63, size=(N, 3), dtype=np.uint64)
-    dh = rng.integers(0, 1 << 63, size=(N,), dtype=np.uint64)
-    want_keys, want_nonces = lpn.derive_keys_batch(pk, sk, seeds, dh)
-    tkeys, tbase = lpn.derive_keys_batch(
-        pk, sk, seeds, np.full(N, lpn.DOM_HASH[Dom.TOEP], dtype=np.uint64))
-    want_tnonces = tbase ^ dh
-
-    layout = lpn.derive_layout(pk, sk)
-    tmpl = layout.template_words()
-    f3 = np.zeros((N, 3, 2), dtype=np.uint32)
-    f3[:, :, 0] = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    f3[:, :, 1] = (seeds >> np.uint64(32)).astype(np.uint32)
-    dh2 = np.stack(
-        [(dh & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-         (dh >> np.uint64(32)).astype(np.uint32)], axis=-1)
-    f_main = np.concatenate([f3, dh2[:, None, :]], axis=1)
-    got = lpn.derive_keys_xp(layout, tmpl, f_main)
-    assert np.array_equal(got, want_keys)
-    TOEP = lpn.DOM_HASH[Dom.TOEP]
-    tc = np.array([TOEP & 0xFFFFFFFF, TOEP >> 32], dtype=np.uint32)
-    f_toep = np.concatenate(
-        [f3, np.broadcast_to(tc[None, None, :], (N, 1, 2))], axis=1)
-    got_t = lpn.derive_keys_xp(layout, tmpl, f_toep)
-    assert np.array_equal(got_t, tkeys)
-    # nonce reconstruction as the device program computes it
-    nlo = dh2[:, 0] ^ f3[:, 1, 0]
-    nhi = dh2[:, 1] ^ f3[:, 1, 1]
-    got_n = nlo.astype(np.uint64) | (nhi.astype(np.uint64) << np.uint64(32))
-    assert np.array_equal(got_n, want_nonces)
-    tnlo = tc[0] ^ f3[:, 1, 0] ^ dh2[:, 0]
-    tnhi = tc[1] ^ f3[:, 1, 1] ^ dh2[:, 1]
-    got_tn = tnlo.astype(np.uint64) | (tnhi.astype(np.uint64) << np.uint64(32))
-    assert np.array_equal(got_tn, want_tnonces)
-
 
 def test_lpn_ybits_first_words(vectors, synth):
     pk, sk, seed = synth

@@ -98,7 +98,6 @@ def mesh_keys():
     pk, sk = pvac.keygen(pvac.small_test_params())
     mesh = make_mesh(jax.devices()[:8])
     eng = enable_device(pk, sk, mesh=mesh)
-    eng.use_pallas_sha = False
     yield pk, sk, eng
     disable_device(pk)
 
@@ -172,7 +171,7 @@ def test_mesh_engine_real_ops_roundtrip(mesh_keys):
 def test_mesh_engine_prf_is_lpn_tensor_parallel(mesh_keys):
     """The REAL engine PRF program runs the LPN contraction tensor-parallel
     on a (dp, tp) mesh: the secret lives sharded P('tp') and the prf
-    output is still bit-exact vs the host path (VERDICT r3 #5).
+    output is still bit-exact vs the host path.
 
     test_mesh_engine_prf_bitexact covers exactness; this asserts the tp
     configuration is actually ACTIVE (not silently fallen back)."""
@@ -216,7 +215,7 @@ def test_mesh_engine_default_params_roundtrip():
     """enc -> mul -> add -> dec at PRODUCTION shape (default Params,
     m_bits=8192: tp-sharded 256-word σ rows, compact-transfer program,
     LPN-tp PRF) on the 8-device (dp=2, tp=4) virtual mesh, with a host
-    decrypt cross-check (VERDICT r3 #6)."""
+    decrypt cross-check."""
     import pvac_hfhe_cppbyv_tpu as pvac
     from pvac_hfhe_cppbyv_tpu.parallel.engine import (
         disable_device, enable_device,
@@ -227,7 +226,6 @@ def test_mesh_engine_default_params_roundtrip():
     pk, sk = pvac.keygen(Params())
     mesh = make_mesh(jax.devices()[:8])
     eng = enable_device(pk, sk, mesh=mesh)
-    eng.use_pallas_sha = False  # virtual CPU devices can't run TPU Pallas
     try:
         assert eng.tp == 4 and eng._s32_tp
         assert tuple(eng.Hx_dev.sharding.spec) == (None, "tp")

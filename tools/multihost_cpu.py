@@ -1,14 +1,13 @@
 #!/usr/bin/env python
 """TRUE multi-process validation of the distributed backend (SURVEY §2.3).
 
-This environment has one physical TPU, so multi-HOST execution cannot be
-validated on hardware — but the distributed runtime itself can: this tool
-launches TWO OS processes, each owning 4 virtual CPU devices, joined by
-``jax.distributed`` into one 8-device global (dp=2, tp=4) mesh.  Every
-collective (the LPN partial-parity psum, the ct_mul bucket psum) then
-actually crosses the process boundary through the distributed runtime —
-the same mechanism (and the same engine/step code, unchanged) that spans
-hosts over ICI/DCN on a real pod.
+Multi-HOST execution needs several machines, but the distributed runtime
+itself can be validated on one: this tool launches TWO OS processes, each
+owning 4 virtual CPU devices, joined by ``jax.distributed`` into one
+8-device global (dp=2, tp=4) mesh.  Every collective (the LPN
+partial-parity psum, the ct_mul bucket psum) then actually crosses the
+process boundary through the distributed runtime — the same mechanism (and
+the same engine/step code, unchanged) that spans hosts.
 
 Legs:
 1. make_multichip_step (parallel/sharding.py): the sharded PRF + bucket
@@ -110,7 +109,7 @@ def worker(pid: int, nproc: int) -> None:
 
     # ---- leg 2: real engine σ program on the cross-process mesh ----
     t0 = time.time()
-    kdir = "/tmp/pvac_mh_keys"
+    kdir = str(REPO / "build" / "multihost_keys")
     prm = pvac.small_test_params()
     if pid == 0:
         os.makedirs(kdir, exist_ok=True)
@@ -130,8 +129,7 @@ def worker(pid: int, nproc: int) -> None:
         sk = serial.load_sk(f"{kdir}/sk.bin")
     multihost_utils.sync_global_devices("pvac-mh-keys")
 
-    eng = DeviceEngine(pk, sk, mesh=mesh, use_pallas=False)
-    eng.use_pallas_sha = False
+    eng = DeviceEngine(pk, sk, mesh=mesh)
     assert eng.tp == 4 and eng.n_dev == nproc
     E = 64 * nproc  # one exact dp-divisible chunk
     rng = np.random.default_rng(23)  # identical words in both processes
@@ -166,8 +164,8 @@ def worker(pid: int, nproc: int) -> None:
             "note": (
                 "two OS processes joined by jax.distributed; psum and "
                 "sigma collectives cross the process boundary through the "
-                "distributed runtime (the mechanism that spans hosts on a "
-                "pod); results bit-exact vs host in BOTH processes"
+                "distributed runtime (the mechanism that spans hosts); "
+                "results bit-exact vs host in BOTH processes"
             ),
         }
         with open(REPO / "docs" / "multihost_cpu.json", "w") as f:

@@ -3,7 +3,7 @@
 // Links against the READ-ONLY reference headers at /root/reference/include
 // (not copied into this repo). Produces tests/golden/vectors.json with
 // deterministic input/output pairs for every keyed/deterministic component
-// of the reference scheme, so the TPU-native reimplementation can be
+// of the reference scheme, so the JAX reimplementation can be
 // validated bit-exactly without ever running the C++ code in CI.
 //
 // All inputs are synthetic and fixed (splitmix64-derived), so this dump is

@@ -3,7 +3,7 @@
 // Runs the READ-ONLY reference implementation (headers at
 // /root/reference/include) end-to-end with default and small Params, and
 // writes key material + ciphertexts + expected plaintexts to
-// tests/golden/{default,small}/. The TPU-native framework must load these
+// tests/golden/{default,small}/. The JAX framework must load these
 // and decrypt to the expected values bit-for-bit.
 #include <pvac/pvac.hpp>
 #include <pvac/utils/text.hpp>

@@ -1,6 +1,6 @@
 // Reference-side decoder: decrypts .ct files (bounty/VER-1 format) using the
 // READ-ONLY reference implementation, given a pk-lite + sk. Used by the test
-// suite to prove that ciphertexts produced by the TPU-native framework are
+// suite to prove that ciphertexts produced by the JAX framework are
 // decryptable by the original C++ implementation (interop in the reverse
 // direction of gen_golden).
 //
